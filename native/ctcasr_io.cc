@@ -2,13 +2,13 @@
 //
 // The reference delegated its input pipeline to tf.data's C++ runtime
 // (SURVEY.md §2b row 5); this library is the equivalent first-party
-// native component for the TPU framework's loader: given a batch of wav
+// native component for the framework's loader: given a batch of wav
 // paths it decodes PCM into a caller-provided, pre-padded float32
 // [B, S] buffer in parallel worker threads — one C call per batch
 // instead of per-utterance Python I/O (the loader's host-side hot path;
 // the DSP itself runs on-device, features.py).
 //
-// Exposed C ABI (ctypes-friendly, see ctc_asr_tpu/data/native_io.py):
+// Exposed C ABI (ctypes-friendly, see ctc_asr/data/native_io.py):
 //   ctcasr_decode_batch(paths, n, max_samples, out, out_lengths,
 //                       out_rates, n_threads) -> 0 on success
 //   ctcasr_wav_info(path, &n_samples, &sample_rate) -> 0 on success

@@ -62,7 +62,7 @@ def main():
               f"{100*r['test_cer']:.2f}% | {rtf} |")
 
     # paired ranking of the best rungs that have sidecars
-    from ctc_asr_tpu.metrics import paired_bootstrap
+    from ctc_asr.metrics import paired_bootstrap
     scored = [r for r in rows if "test_wer" in r]
     scored.sort(key=lambda r: r["test_wer"])
     best, seen = [], set()

@@ -43,7 +43,7 @@ def main():
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import run_ladder_hard as lh
-    from ctc_asr_tpu.train import train
+    from ctc_asr.train import train
 
     preset_name, lr, specaug = RUNG_PRESETS[args.rung]
     man = {k: os.path.join(args.out, "corpus", f"{k}.csv")

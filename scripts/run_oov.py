@@ -47,15 +47,15 @@ CORPUS_SEED = 7  # the r4big generation seed (run_ladder_hard.py)
 
 
 def eval_split(cfg, params, manifest_path, log_samples=0):
-    from ctc_asr_tpu.data import DataLoader, read_manifest
-    from ctc_asr_tpu.evaluate import evaluate
+    from ctc_asr.data import DataLoader, read_manifest
+    from ctc_asr.evaluate import evaluate
     loader = DataLoader(read_manifest(manifest_path), cfg.data,
                         cfg.features, drop_last=False)
     return evaluate(cfg, params, loader=loader, log_samples=log_samples)
 
 
 def arm_cfg(preset_name, eval_manifest, batch=32):
-    from ctc_asr_tpu.config import preset
+    from ctc_asr.config import preset
     cfg = preset(preset_name)
     return dc.replace(
         cfg,
@@ -66,8 +66,8 @@ def arm_cfg(preset_name, eval_manifest, batch=32):
 
 
 def load_params(cfg, ckpt_path):
-    from ctc_asr_tpu import checkpoint as ckpt_mod
-    from ctc_asr_tpu.train import init_train_state
+    from ctc_asr import checkpoint as ckpt_mod
+    from ctc_asr.train import init_train_state
     state, _ = ckpt_mod.load_checkpoint(ckpt_path, init_train_state(cfg))
     return state["params"]
 
@@ -86,13 +86,13 @@ def main():
     args = ap.parse_args()
     os.makedirs(args.out, exist_ok=True)
 
-    from ctc_asr_tpu.data import read_manifest
-    from ctc_asr_tpu.data.synth import (build_oov_vocabulary,
-                                        build_vocabulary,
-                                        generate_hard_split,
-                                        generate_lm_text)
-    from ctc_asr_tpu.metrics import paired_bootstrap
-    from ctc_asr_tpu.ops import lm as lm_mod
+    from ctc_asr.data import read_manifest
+    from ctc_asr.data.synth import (build_oov_vocabulary,
+                                    build_vocabulary,
+                                    generate_hard_split,
+                                    generate_lm_text)
+    from ctc_asr.metrics import paired_bootstrap
+    from ctc_asr.ops import lm as lm_mod
 
     results_path = os.path.join(args.out, "oov_results.jsonl")
     utt_dir = os.path.join(args.out, "per_utt")

@@ -1,5 +1,5 @@
 """Config-ladder rung 2 on the synth corpus: conv frontend + 3x BiLSTM
-(BASELINE.json:8 family), trained on TPU with all Pallas kernels, then
+(BASELINE.json:8 family), trained on the default JAX device, then
 greedy + beam eval. Emits one JSON line."""
 
 import argparse
@@ -15,15 +15,15 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=600)
     ap.add_argument("--n", type=int, default=128)
-    ap.add_argument("--out", default="/tmp/ctc_asr_tpu_ds2")
+    ap.add_argument("--out", default="/tmp/ctc_asr_ds2")
     args = ap.parse_args()
 
-    from ctc_asr_tpu.config import (Config, DataConfig, DecodeConfig,
-                                    FeatureConfig, ModelConfig, TrainConfig)
-    from ctc_asr_tpu.data import DataLoader, read_manifest
-    from ctc_asr_tpu.data.synth import generate_corpus
-    from ctc_asr_tpu.evaluate import evaluate
-    from ctc_asr_tpu.train import train
+    from ctc_asr.config import (Config, DataConfig, DecodeConfig,
+                                FeatureConfig, ModelConfig, TrainConfig)
+    from ctc_asr.data import DataLoader, read_manifest
+    from ctc_asr.data.synth import generate_corpus
+    from ctc_asr.evaluate import evaluate
+    from ctc_asr.train import train
 
     corpus_dir = os.path.join(args.out, "corpus")
     manifest_path = os.path.join(corpus_dir, "manifest.csv")
@@ -51,9 +51,8 @@ def main():
     res = {"train_steps": int(state["step"]),
            "train_wall_s": round(wall, 1)}
     for tag, dec in [("greedy", DecodeConfig(method="greedy")),
-                     ("beam_pallas", DecodeConfig(method="beam",
-                                                  beam_width=16,
-                                                  use_pallas=True))]:
+                     ("beam16", DecodeConfig(method="beam",
+                                                  beam_width=16))]:
         c = Config(features=cfg.features, model=cfg.model, data=cfg.data,
                    train=cfg.train, decode=dec)
         loader = DataLoader(manifest, c.data, c.features, drop_last=False)

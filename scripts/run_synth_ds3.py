@@ -1,6 +1,6 @@
 """Config-ladder rung 3 proxy (BASELINE.json:9): full DeepSpeech-style
 model (conv + 5x BiLSTM-800) + prefix beam search (beam=64), trained on
-the synth corpus on TPU. Emits one JSON line."""
+the synth corpus on the default JAX device. Emits one JSON line."""
 
 import argparse, json, os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -9,15 +9,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=300)
-    ap.add_argument("--out", default="/tmp/ctc_asr_tpu_ds3")
+    ap.add_argument("--out", default="/tmp/ctc_asr_ds3")
     args = ap.parse_args()
 
-    from ctc_asr_tpu.config import (Config, DataConfig, DecodeConfig,
-                                    FeatureConfig, ModelConfig, TrainConfig)
-    from ctc_asr_tpu.data import DataLoader, read_manifest
-    from ctc_asr_tpu.data.synth import generate_corpus
-    from ctc_asr_tpu.evaluate import evaluate
-    from ctc_asr_tpu.train import train
+    from ctc_asr.config import (Config, DataConfig, DecodeConfig,
+                                FeatureConfig, ModelConfig, TrainConfig)
+    from ctc_asr.data import DataLoader, read_manifest
+    from ctc_asr.data.synth import generate_corpus
+    from ctc_asr.evaluate import evaluate
+    from ctc_asr.train import train
 
     corpus_dir = os.path.join(args.out, "corpus")
     manifest_path = os.path.join(corpus_dir, "manifest.csv")
@@ -36,8 +36,7 @@ def main():
                           log_every=50, eval_every=10 ** 9,
                           checkpoint_every=args.steps,
                           train_dir=os.path.join(args.out, "train")),
-        decode=DecodeConfig(method="beam", beam_width=64,
-                            use_pallas=True),
+        decode=DecodeConfig(method="beam", beam_width=64),
     )
     t0 = time.time()
     state = train(cfg)
@@ -47,7 +46,7 @@ def main():
     r = evaluate(cfg, state["params"], loader=loader, log_samples=0)
     print(json.dumps({"train_steps": int(state["step"]),
                       "train_wall_s": round(wall, 1),
-                      "beam64_pallas_wer": round(r["wer"], 4),
+                      "beam64_wer": round(r["wer"], 4),
                       "beam64_rtf": round(r["rtf"], 5)}))
 
 

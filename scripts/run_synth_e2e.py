@@ -21,16 +21,16 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=500)
     ap.add_argument("--n", type=int, default=96)
-    ap.add_argument("--out", default="/tmp/ctc_asr_tpu_e2e")
+    ap.add_argument("--out", default="/tmp/ctc_asr_e2e")
     ap.add_argument("--batch", type=int, default=8)
     args = ap.parse_args()
 
-    from ctc_asr_tpu.config import (Config, DataConfig, DecodeConfig,
-                                    FeatureConfig, ModelConfig, TrainConfig)
-    from ctc_asr_tpu.data import DataLoader, read_manifest
-    from ctc_asr_tpu.data.synth import generate_corpus
-    from ctc_asr_tpu.evaluate import evaluate
-    from ctc_asr_tpu.train import train
+    from ctc_asr.config import (Config, DataConfig, DecodeConfig,
+                                FeatureConfig, ModelConfig, TrainConfig)
+    from ctc_asr.data import DataLoader, read_manifest
+    from ctc_asr.data.synth import generate_corpus
+    from ctc_asr.evaluate import evaluate
+    from ctc_asr.train import train
 
     corpus_dir = os.path.join(args.out, "corpus")
     manifest_path = os.path.join(corpus_dir, "manifest.csv")
@@ -72,9 +72,7 @@ def main():
         results[f"{tag}_rtf"] = round(r["rtf"], 5)
 
     eval_with(DecodeConfig(method="greedy"), "greedy")
-    eval_with(DecodeConfig(method="beam", beam_width=16), "beam_xla")
-    eval_with(DecodeConfig(method="beam", beam_width=16, use_pallas=True),
-              "beam_pallas")
+    eval_with(DecodeConfig(method="beam", beam_width=16), "beam16")
     print(json.dumps(results))
 
 

@@ -17,18 +17,18 @@ def main():
     ap.add_argument("--steps", type=int, default=1200)
     ap.add_argument("--n-train", type=int, default=256)
     ap.add_argument("--n-eval", type=int, default=64)
-    ap.add_argument("--out", default="/tmp/ctc_asr_tpu_holdout")
+    ap.add_argument("--out", default="/tmp/ctc_asr_holdout")
     ap.add_argument("--specaugment", action="store_true",
                     help="train with SpecAugment (features.spec_augment)")
     args = ap.parse_args()
 
-    from ctc_asr_tpu.config import (Config, DataConfig, DecodeConfig,
-                                    FeatureConfig, ModelConfig,
-                                    TrainConfig)
-    from ctc_asr_tpu.data import DataLoader, read_manifest
-    from ctc_asr_tpu.data.synth import generate_corpus
-    from ctc_asr_tpu.evaluate import evaluate
-    from ctc_asr_tpu.train import train
+    from ctc_asr.config import (Config, DataConfig, DecodeConfig,
+                                FeatureConfig, ModelConfig,
+                                TrainConfig)
+    from ctc_asr.data import DataLoader, read_manifest
+    from ctc_asr.data.synth import generate_corpus
+    from ctc_asr.evaluate import evaluate
+    from ctc_asr.train import train
 
     corpus = os.path.join(args.out, "corpus")
     manifest_path = os.path.join(corpus, "manifest.csv")

@@ -12,16 +12,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dir", default="/tmp/ctc_asr_tpu_ds2")
+    ap.add_argument("--dir", default="/tmp/ctc_asr_ds2")
     args = ap.parse_args()
 
-    from ctc_asr_tpu import checkpoint as ckpt_mod
-    from ctc_asr_tpu.config import (Config, DataConfig, DecodeConfig,
-                                    FeatureConfig, ModelConfig, TrainConfig)
-    from ctc_asr_tpu.data import DataLoader, read_manifest
-    from ctc_asr_tpu.evaluate import evaluate
-    from ctc_asr_tpu.ops import lm as lm_mod
-    from ctc_asr_tpu.train import init_train_state
+    from ctc_asr import checkpoint as ckpt_mod
+    from ctc_asr.config import (Config, DataConfig, DecodeConfig,
+                                FeatureConfig, ModelConfig, TrainConfig)
+    from ctc_asr.data import DataLoader, read_manifest
+    from ctc_asr.evaluate import evaluate
+    from ctc_asr.ops import lm as lm_mod
+    from ctc_asr.train import init_train_state
 
     manifest_path = os.path.join(args.dir, "corpus", "manifest.csv")
     manifest = read_manifest(manifest_path)

@@ -1,6 +1,6 @@
 import pytest
 
-from ctc_asr_tpu import config as cfg_mod
+from ctc_asr import config as cfg_mod
 
 
 def test_defaults_roundtrip_json():

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ctc_asr_tpu.ops.ctc_ref import ctc_loss, ctc_loss_ref
-from ctc_asr_tpu.text import BLANK_ID
+from ctc_asr.ops.ctc_ref import ctc_loss, ctc_loss_ref
+from ctc_asr.text import BLANK_ID
 
 
 def oracle_ctc_nll(log_probs, label, blank):

@@ -1,11 +1,11 @@
 import numpy as np
 import pytest
 
-from ctc_asr_tpu import text
-from ctc_asr_tpu.config import DataConfig, FeatureConfig
-from ctc_asr_tpu.data import (DataLoader, read_manifest)
-from ctc_asr_tpu.data.loader import BatchSpec
-from ctc_asr_tpu.data.synth import generate_corpus
+from ctc_asr import text
+from ctc_asr.config import DataConfig, FeatureConfig
+from ctc_asr.data import (DataLoader, read_manifest)
+from ctc_asr.data.loader import BatchSpec
+from ctc_asr.data.synth import generate_corpus
 
 
 @pytest.fixture(scope="module")
@@ -17,11 +17,11 @@ def corpus(tmp_path_factory):
 
 DATA_CFG = DataConfig(batch_size=4, num_buckets=3, num_workers=2,
                       min_audio_seconds=0.1, max_audio_seconds=10.0)
-FEAT_CFG = FeatureConfig(use_pallas=False)
+FEAT_CFG = FeatureConfig()
 
 
 def test_manifest_roundtrip(corpus, tmp_path):
-    from ctc_asr_tpu.data import write_manifest
+    from ctc_asr.data import write_manifest
     p = str(tmp_path / "m.csv")
     write_manifest(p, corpus)
     m2 = read_manifest(p)
@@ -110,7 +110,7 @@ def test_prefetch_iterator_and_resume_cursor(corpus):
 
 
 def test_loader_rejects_empty():
-    from ctc_asr_tpu.data.manifest import Manifest
+    from ctc_asr.data.manifest import Manifest
     with pytest.raises(ValueError):
         DataLoader(Manifest([]), DATA_CFG, FEAT_CFG)
 
@@ -119,7 +119,7 @@ def test_producer_failure_raises_not_hangs(corpus, tmp_path):
     """A bad wav path must surface as an error in the consumer; the
     pre-fix behavior was a silently dead producer thread and an
     eternal queue.get()."""
-    from ctc_asr_tpu.data.manifest import Manifest, Utterance
+    from ctc_asr.data.manifest import Manifest, Utterance
     bad = Manifest([Utterance(str(tmp_path / "missing.wav"), 1.0,
                               "ghost utterance")] * 4)
     loader = DataLoader(bad, DATA_CFG, FEAT_CFG)
@@ -155,7 +155,7 @@ def test_load_state_dict_rejects_seed_mismatch(corpus):
 def test_wire16_roundtrip_exact():
     """int16 wire transport must be EXACT for int16-PCM sources:
     v -> v/32768 (read_wav) -> float_to_wire16 -> /32768 == v/32768."""
-    from ctc_asr_tpu import audio as audio_mod
+    from ctc_asr import audio as audio_mod
     v = np.array([-32768, -12345, -1, 0, 1, 31999, 32767], np.int16)
     f = v.astype(np.float32) / 32768.0
     wire = audio_mod.float_to_wire16(f)
@@ -175,8 +175,8 @@ def test_loader_float32_wire_flag(corpus):
 def test_features_accept_wire16(corpus):
     """extract_features on int16 wire samples must match the f32 path."""
     import jax.numpy as jnp
-    from ctc_asr_tpu import audio as audio_mod
-    from ctc_asr_tpu import features as feat_mod
+    from ctc_asr import audio as audio_mod
+    from ctc_asr import features as feat_mod
     rng = np.random.default_rng(0)
     f32 = (rng.standard_normal((2, 8000)) * 0.1).astype(np.float32)
     f32 = np.clip(f32, -1, 1)
@@ -198,8 +198,8 @@ def test_ulaw_wire_roundtrip_and_features(corpus):
     error, and the on-device decode in extract_features matches the
     host-side inverse exactly."""
     import jax.numpy as jnp
-    from ctc_asr_tpu import audio as audio_mod
-    from ctc_asr_tpu import features as feat_mod
+    from ctc_asr import audio as audio_mod
+    from ctc_asr import features as feat_mod
     rng = np.random.default_rng(1)
     x = np.clip(rng.standard_normal((2, 8000)) * 0.3, -1, 1) \
         .astype(np.float32)
@@ -257,7 +257,7 @@ def test_load_state_dict_resets_stale_cursor(corpus):
 def test_producer_failure_raises_every_call(corpus, tmp_path):
     """After the producer dies, EVERY subsequent next() must fail fast
     (not just the first)."""
-    from ctc_asr_tpu.data.manifest import Manifest, Utterance
+    from ctc_asr.data.manifest import Manifest, Utterance
     bad = Manifest([Utterance(str(tmp_path / "missing.wav"), 1.0,
                               "ghost utterance")] * 4)
     loader = DataLoader(bad, DATA_CFG, FEAT_CFG)
@@ -279,7 +279,7 @@ def test_device_batches_repins_consumed(corpus):
     """train.device_batches pulls one batch ahead; with loader= it must
     re-pin loader.consumed to the batch actually yielded so
     state_dict() stays an exact resume point."""
-    from ctc_asr_tpu.train import device_batches
+    from ctc_asr.train import device_batches
     loader = DataLoader(corpus, DATA_CFG, FEAT_CFG)
     it = iter(loader)
     dev_it = device_batches(it, loader=loader)

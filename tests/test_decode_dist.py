@@ -7,11 +7,11 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ctc_asr_tpu.config import Config, DecodeConfig, MeshConfig
-from ctc_asr_tpu.ops import lm as lm_mod
-from ctc_asr_tpu.ops.beam import make_beam_decoder
-from ctc_asr_tpu.parallel.decode_dist import make_sharded_lm_beam_decoder
-from ctc_asr_tpu.parallel.mesh import build_mesh
+from ctc_asr.config import Config, DecodeConfig, MeshConfig
+from ctc_asr.ops import lm as lm_mod
+from ctc_asr.ops.beam import make_beam_decoder
+from ctc_asr.parallel.decode_dist import make_sharded_lm_beam_decoder
+from ctc_asr.parallel.mesh import build_mesh
 
 
 @pytest.fixture(scope="module")

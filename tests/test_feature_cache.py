@@ -7,18 +7,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ctc_asr_tpu import features as feat_mod
-from ctc_asr_tpu.config import (Config, DataConfig, FeatureConfig,
-                                ModelConfig, TrainConfig)
-from ctc_asr_tpu.data import DataLoader, read_manifest
-from ctc_asr_tpu.data.feature_cache import (FeatureCache,
-                                            build_feature_cache,
-                                            feature_key)
-from ctc_asr_tpu.data.synth import generate_corpus
+from ctc_asr import features as feat_mod
+from ctc_asr.config import (Config, DataConfig, FeatureConfig,
+                            ModelConfig, TrainConfig)
+from ctc_asr.data import DataLoader, read_manifest
+from ctc_asr.data.feature_cache import (FeatureCache,
+                                        build_feature_cache,
+                                        feature_key)
+from ctc_asr.data.synth import generate_corpus
 
 DATA_CFG = DataConfig(batch_size=4, num_buckets=2, num_workers=2,
                       min_audio_seconds=0.1, max_audio_seconds=10.0)
-FEAT_CFG = FeatureConfig(use_pallas=False)
+FEAT_CFG = FeatureConfig()
 
 
 @pytest.fixture(scope="module")
@@ -37,7 +37,7 @@ def cache_dir(corpus, tmp_path_factory):
 
 
 def test_cache_matches_extract_features(corpus, cache_dir):
-    from ctc_asr_tpu import audio as audio_mod
+    from ctc_asr import audio as audio_mod
     cache = FeatureCache(cache_dir, FEAT_CFG)
     for u in list(corpus)[:4]:
         assert u.path in cache
@@ -77,7 +77,7 @@ def test_loader_cache_mode_batches(corpus, cache_dir):
 
 
 def test_train_step_accepts_cached_features(corpus, cache_dir):
-    from ctc_asr_tpu.train import init_train_state, make_train_step
+    from ctc_asr.train import init_train_state, make_train_step
     dcfg = dataclasses.replace(DATA_CFG, feature_cache=cache_dir)
     cfg = Config(
         features=FEAT_CFG,
@@ -85,8 +85,7 @@ def test_train_step_accepts_cached_features(corpus, cache_dir):
                           rnn_layers=1, rnn_units=16, dropout=0.0,
                           compute_dtype="float32"),
         data=dcfg,
-        train=TrainConfig(learning_rate=1e-3, seed=0,
-                          use_pallas_ctc=False))
+        train=TrainConfig(learning_rate=1e-3, seed=0))
     loader = DataLoader(corpus, dcfg, FEAT_CFG, drop_last=False)
     state = init_train_state(cfg)
     step = make_train_step(cfg, donate=False)
@@ -102,8 +101,8 @@ def test_stale_cache_rejected(cache_dir):
     assert feature_key(other) != feature_key(FEAT_CFG)
     with pytest.raises(ValueError, match="different FeatureConfig"):
         FeatureCache(cache_dir, other)
-    # use_pallas is a dispatch choice, not a feature change
-    assert feature_key(dataclasses.replace(FEAT_CFG, use_pallas=True)) \
+    # an equal config maps to the same key
+    assert feature_key(dataclasses.replace(FEAT_CFG)) \
         == feature_key(FEAT_CFG)
 
 
@@ -136,7 +135,7 @@ def test_int8_cache_roundtrip_and_train(corpus, tmp_path):
     features dequantize on device to within the quantization step of
     the float pipeline, the loader serves int8 batches (half the f16
     wire bytes), and a train step runs on them."""
-    from ctc_asr_tpu.data.feature_cache import FEATURE_INT8_SCALE
+    from ctc_asr.data.feature_cache import FEATURE_INT8_SCALE
     out = str(tmp_path / "cache8")
     build_feature_cache(corpus, DATA_CFG, FEAT_CFG, out,
                         progress_every=0, dtype="int8")
@@ -144,7 +143,7 @@ def test_int8_cache_roundtrip_and_train(corpus, tmp_path):
     assert cache.dtype == "int8" and cache.np_dtype == np.int8
 
     # per-utterance parity vs the float pipeline within the quant step
-    from ctc_asr_tpu import audio as audio_mod
+    from ctc_asr import audio as audio_mod
     u = corpus[0]
     samples, sr = audio_mod.read_wav(u.path)
     ref, flens = feat_mod.extract_features(
@@ -166,15 +165,14 @@ def test_int8_cache_roundtrip_and_train(corpus, tmp_path):
     loader = DataLoader(corpus, dcfg, FEAT_CFG)
     b = next(iter(loader.iter_epoch(0)))
     assert b.samples.dtype == np.int8
-    from ctc_asr_tpu.train import init_train_state, make_train_step
+    from ctc_asr.train import init_train_state, make_train_step
     cfg = Config(features=FEAT_CFG,
                  model=ModelConfig(frontend="dense", dense_layers=1,
                                    dense_units=32, rnn_layers=1,
                                    rnn_units=32, dropout=0.0,
-                                   compute_dtype="float32",
-                                   use_pallas_rnn=False),
+                                   compute_dtype="float32"),
                  data=dcfg,
-                 train=TrainConfig(use_pallas_ctc=False))
+                 train=TrainConfig())
     state = init_train_state(cfg)
     state, m = make_train_step(cfg, donate=False)(
         state, jnp.asarray(b.samples), jnp.asarray(b.sample_lengths),

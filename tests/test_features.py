@@ -2,13 +2,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ctc_asr_tpu import features
-from ctc_asr_tpu.config import FeatureConfig
+from ctc_asr import features
+from ctc_asr import features as feat_mod
+from ctc_asr.config import FeatureConfig
 
 
 @pytest.fixture(scope="module")
 def cfg():
-    return FeatureConfig(use_pallas=False)
+    return FeatureConfig()
 
 
 def _tone(freq, seconds=0.5, sr=16000):
@@ -56,7 +57,7 @@ def test_logmel_peak_bin(cfg):
 
 
 def test_mfcc_shape_and_finite():
-    cfg = FeatureConfig(feature_type="mfcc", n_mfcc=13, use_pallas=False)
+    cfg = FeatureConfig(feature_type="mfcc", n_mfcc=13)
     sig = _tone(440.0, seconds=0.3)
     out = np.asarray(features.mfcc(jnp.asarray(sig), cfg))
     T = features.num_frames(len(sig), cfg)
@@ -101,12 +102,12 @@ def test_normalize_modes(cfg):
 
 def test_dataset_stats_global_normalization(tmp_path):
     """compute_dataset_stats + stats_path drives 'global' normalization."""
-    from ctc_asr_tpu.config import DataConfig, FeatureConfig
-    from ctc_asr_tpu.data import read_manifest
-    from ctc_asr_tpu.data.synth import generate_corpus
+    from ctc_asr.config import DataConfig, FeatureConfig
+    from ctc_asr.data import read_manifest
+    from ctc_asr.data.synth import generate_corpus
     mp = generate_corpus(str(tmp_path / "c"), num_utterances=6, seed=4)
     manifest = read_manifest(mp)
-    fc = FeatureConfig(n_mels=32, use_pallas=False, normalization="global")
+    fc = FeatureConfig(n_mels=32, normalization="global")
     dc = DataConfig(batch_size=3, num_buckets=1, num_workers=1,
                     min_audio_seconds=0.05)
     stats_path = str(tmp_path / "stats.npz")
@@ -114,7 +115,7 @@ def test_dataset_stats_global_normalization(tmp_path):
     assert res["frames"] > 0
     assert res["mean"].shape == (32,)
 
-    fc2 = FeatureConfig(n_mels=32, use_pallas=False,
+    fc2 = FeatureConfig(n_mels=32,
                         normalization="global", stats_path=stats_path)
     rng = np.random.default_rng(0)
     x = jnp.asarray(rng.standard_normal((2, 16000)).astype(np.float32))
@@ -122,7 +123,7 @@ def test_dataset_stats_global_normalization(tmp_path):
     feats, flens = features.extract_features(x, lens, fc2)
     assert np.isfinite(np.asarray(feats)).all()
     # differs from the batch-stats fallback (no stats file)
-    fc3 = FeatureConfig(n_mels=32, use_pallas=False,
+    fc3 = FeatureConfig(n_mels=32,
                         normalization="global")
     feats3, _ = features.extract_features(x, lens, fc3)
     assert not np.allclose(np.asarray(feats), np.asarray(feats3))
@@ -132,7 +133,7 @@ def test_spec_augment_masks_and_bounds():
     """SpecAugment: spans only zero values, time masks stay inside each
     utterance's valid region, and widths respect the config bounds."""
     import jax
-    from ctc_asr_tpu.features import spec_augment
+    from ctc_asr.features import spec_augment
     rng = np.random.default_rng(0)
     B, T, F = 4, 60, 20
     feats = jnp.asarray(np.abs(rng.standard_normal((B, T, F))) + 1.0)
@@ -163,15 +164,15 @@ def test_spec_augment_disabled_in_step_is_identity():
     pre-flag behavior (the sa rng is fold_in-derived, so streams don't
     shift), and with it on the loss must stay finite."""
     import jax
-    from ctc_asr_tpu.config import (Config, DataConfig, FeatureConfig,
-                                    ModelConfig, TrainConfig)
-    from ctc_asr_tpu.train import init_train_state, make_step_fn
+    from ctc_asr.config import (Config, DataConfig, FeatureConfig,
+                                ModelConfig, TrainConfig)
+    from ctc_asr.train import init_train_state, make_step_fn
     rng = np.random.default_rng(0)
     model = ModelConfig(frontend="dense", dense_layers=1, dense_units=16,
                         rnn_layers=1, rnn_units=16, dropout=0.1,
                         compute_dtype="float32")
     mk = lambda sa: Config(  # noqa: E731
-        features=FeatureConfig(use_pallas=False),
+        features=FeatureConfig(),
         model=model, data=DataConfig(batch_size=2),
         train=TrainConfig(seed=0, specaugment=sa, sa_time_ratio=0.3))
     B, S, U = 2, 16000, 8
@@ -191,3 +192,61 @@ def test_spec_augment_disabled_in_step_is_identity():
     state = init_train_state(cfg)
     _, m2 = make_step_fn(cfg)(state, samples, slens, labels, llens)
     assert losses[False] == float(m2["loss"])
+
+
+# ---------------------------------------------------------------------------
+# The matmul feature pipeline against an independent NumPy/SciPy oracle:
+# framing -> Hann window -> rFFT power -> HTK mel triangles -> log (->
+# orthonormal DCT-II).
+# ---------------------------------------------------------------------------
+
+def _signal(B, seconds, sr, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    return np.stack([np.sin(2 * np.pi * (300 + 200 * b) * t)
+                     + 0.3 * rng.standard_normal(len(t))
+                     for b in range(B)]).astype(np.float32)
+
+
+def _oracle_features(x, cfg):
+    import scipy.fft
+    win, hop = cfg.win_length, cfg.hop_length
+    T = 1 + (x.shape[-1] - win) // hop
+    frames = np.stack([x[..., t * hop:t * hop + win] for t in range(T)], -2)
+    n = np.arange(win)
+    window = 0.5 - 0.5 * np.cos(2 * np.pi * n / win)
+    power = np.abs(np.fft.rfft(frames.astype(np.float64) * window,
+                               n=cfg.n_fft)) ** 2
+    mel = lambda f: 2595.0 * np.log10(1.0 + f / 700.0)      # noqa: E731
+    hz = lambda m: 700.0 * (10.0 ** (m / 2595.0) - 1.0)      # noqa: E731
+    edges = hz(np.linspace(mel(cfg.fmin), mel(cfg.fmax), cfg.n_mels + 2))
+    freqs = np.arange(cfg.n_fft // 2 + 1) * cfg.sample_rate / cfg.n_fft
+    fb = np.zeros((len(freqs), cfg.n_mels))
+    for m in range(cfg.n_mels):
+        lo, ctr, hi = edges[m:m + 3]
+        fb[:, m] = np.clip(np.minimum((freqs - lo) / (ctr - lo),
+                                      (hi - freqs) / (hi - ctr)), 0, None)
+    logmel = np.log(np.maximum(power @ fb, 1e-6))
+    if cfg.feature_type == "mfcc":
+        return scipy.fft.dct(logmel, type=2, norm="ortho",
+                             axis=-1)[..., :cfg.n_mfcc]
+    return logmel
+
+
+@pytest.mark.parametrize("name,kw,seconds", [
+    ("mel", dict(feature_type="mel", n_mels=40), 1.5),
+    ("mfcc", dict(feature_type="mfcc", n_mels=40, n_mfcc=13), 1.5),
+    ("fmax_nyquist", dict(feature_type="mel", n_mels=40, fmax=8000.0), 1.0),
+    ("odd_frames", dict(feature_type="mel", n_mels=80), 0.71),
+    ("long_window", dict(feature_type="mel", n_mels=40, win_ms=32.0,
+                         hop_ms=3.0), 1.0),
+])
+def test_features_match_numpy_oracle(name, kw, seconds):
+    cfg = FeatureConfig(**kw)
+    x = _signal(2, seconds, cfg.sample_rate, seed=len(name))
+    got = np.asarray(feat_mod._jnp_features(jnp.asarray(x), cfg))
+    want = _oracle_features(x, cfg)
+    assert got.shape == want.shape, name
+    if name == "odd_frames":
+        assert got.shape[1] % 2 == 1
+    np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-3)

@@ -6,12 +6,12 @@ import os
 
 import numpy as np
 
-from ctc_asr_tpu import audio as audio_mod
-from ctc_asr_tpu.data.generate import (merge_manifests, parse_stm_line,
-                                       prepare_common_voice,
-                                       prepare_librispeech,
-                                       prepare_tatoeba, prepare_timit)
-from ctc_asr_tpu.data.manifest import read_manifest
+from ctc_asr import audio as audio_mod
+from ctc_asr.data.generate import (merge_manifests, parse_stm_line,
+                                   prepare_common_voice,
+                                   prepare_librispeech,
+                                   prepare_tatoeba, prepare_timit)
+from ctc_asr.data.manifest import read_manifest
 
 
 def _wav(path, seconds, sr=16000, seed=0):
@@ -126,7 +126,7 @@ def test_prepare_tedlium(tmp_path):
         "TalkA 1 spk 0.50 1.20 <o> hello world\n"
         ";; comment line\n"
         "TalkA 1 spk 1.80 2.70 <o> second segment here\n")
-    from ctc_asr_tpu.data.generate import prepare_tedlium
+    from ctc_asr.data.generate import prepare_tedlium
     p = prepare_tedlium(str(root), str(out))
     man = read_manifest(p)
     assert len(man) == 2

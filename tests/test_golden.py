@@ -18,15 +18,14 @@ GOLDEN_PATH = os.path.join(os.path.dirname(__file__), "golden",
 
 
 def _build():
-    from ctc_asr_tpu.config import Config, FeatureConfig, ModelConfig
-    from ctc_asr_tpu.models import apply_encoder, init_params
-    from ctc_asr_tpu.ops.ctc_ref import ctc_loss_ref
-    from ctc_asr_tpu.ops.greedy import greedy_decode
-    from ctc_asr_tpu import features as feat_mod
+    from ctc_asr.config import Config, FeatureConfig, ModelConfig
+    from ctc_asr.models import apply_encoder, init_params
+    from ctc_asr.ops.ctc_ref import ctc_loss_ref
+    from ctc_asr.ops.greedy import greedy_decode
+    from ctc_asr import features as feat_mod
 
     cfg = Config(
-        features=FeatureConfig(feature_type="mfcc", n_mfcc=13, n_mels=26,
-                               use_pallas=False),
+        features=FeatureConfig(feature_type="mfcc", n_mfcc=13, n_mels=26),
         model=ModelConfig(frontend="dense", dense_layers=1,
                           dense_units=32, rnn_layers=1, rnn_units=32,
                           dropout=0.0, compute_dtype="float32"),

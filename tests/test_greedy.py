@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ctc_asr_tpu.ops.greedy import greedy_decode
-from ctc_asr_tpu.text import BLANK_ID, PAD_ID, decode_ids
+from ctc_asr.ops.greedy import greedy_decode
+from ctc_asr.text import BLANK_ID, PAD_ID, decode_ids
 
 
 def _logits_from_ids(ids, C=29, hot=10.0):

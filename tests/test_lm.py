@@ -1,7 +1,7 @@
 import numpy as np
 
-from ctc_asr_tpu.ops import lm as lm_mod
-from ctc_asr_tpu.text import encode
+from ctc_asr.ops import lm as lm_mod
+from ctc_asr.text import encode
 
 
 def test_table_shape_and_normalization():

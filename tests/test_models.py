@@ -3,11 +3,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ctc_asr_tpu.config import ModelConfig
-from ctc_asr_tpu.models import apply_encoder, init_params, output_lengths
-from ctc_asr_tpu.models.rnn import (gru_apply, gru_init, lstm_apply,
-                                    lstm_init, reverse_sequence,
-                                    vanilla_apply, vanilla_init)
+from ctc_asr.config import ModelConfig
+from ctc_asr.models import apply_encoder, init_params, output_lengths
+from ctc_asr.models.rnn import (gru_apply, gru_init, lstm_apply,
+                                lstm_init, reverse_sequence,
+                                vanilla_apply, vanilla_init)
 
 
 def test_reverse_sequence():
@@ -185,8 +185,8 @@ def test_bf16_compute_close_to_f32():
 def test_fused_birnn_matches_two_scans():
     """The single-scan bidirectional must equal running each direction
     separately (the definitional implementation)."""
-    from ctc_asr_tpu.models.rnn import (birnn_apply, lstm_init,
-                                        rnn_apply, reverse_sequence)
+    from ctc_asr.models.rnn import (birnn_apply, lstm_init,
+                                    rnn_apply, reverse_sequence)
     rng = jax.random.PRNGKey(0)
     T, B, F, H = 9, 3, 6, 8
     params = {"fwd": lstm_init(jax.random.PRNGKey(1), F, H),
@@ -203,8 +203,8 @@ def test_fused_birnn_matches_two_scans():
 
 
 def test_fused_bigru_matches_two_scans():
-    from ctc_asr_tpu.models.rnn import (birnn_apply, gru_init,
-                                        rnn_apply, reverse_sequence)
+    from ctc_asr.models.rnn import (birnn_apply, gru_init,
+                                    rnn_apply, reverse_sequence)
     T, B, F, H = 7, 2, 4, 6
     params = {"fwd": gru_init(jax.random.PRNGKey(1), F, H),
               "bwd": gru_init(jax.random.PRNGKey(2), F, H)}
@@ -221,8 +221,8 @@ def test_fused_bigru_matches_two_scans():
 
 def test_conv_matmul_matches_conv():
     """Banded-matmul conv == lax conv (values and gradients)."""
-    from ctc_asr_tpu.models.layers import (conv2d_apply, conv2d_init,
-                                           conv2d_matmul_apply)
+    from ctc_asr.models.layers import (conv2d_apply, conv2d_init,
+                                       conv2d_matmul_apply)
     rng = jax.random.PRNGKey(0)
     for (kt, kf, cin, cout, st, sf, T, F) in [
             (5, 7, 1, 4, 2, 2, 21, 16),
@@ -249,10 +249,10 @@ def test_conv_blocked_matches_conv():
     conv2d_apply). Includes cases that tile onto 128 lanes, the
     no-tiling fallback, and grads wrt the INPUT (the dx path exercised
     by conv2 of a stacked frontend)."""
-    from ctc_asr_tpu.models.layers import (_pick_gfo, _same_pad,
-                                           conv2d_apply,
-                                           conv2d_blocked_apply,
-                                           conv2d_init)
+    from ctc_asr.models.layers import (_pick_gfo, _same_pad,
+                                       conv2d_apply,
+                                       conv2d_blocked_apply,
+                                       conv2d_init)
     rng = jax.random.PRNGKey(0)
     for (kt, kf, cin, cout, st, sf, T, F) in [
             (11, 21, 2, 32, 2, 2, 30, 40),   # gfo=4 -> 128 lanes
@@ -283,63 +283,48 @@ def test_conv_blocked_matches_conv():
 
 
 @pytest.mark.parametrize("rnn_type", ["lstm", "gru"])
-def test_encoder_pair_path_parity(monkeypatch, rnn_type):
-    """The no-concat pair-chained BiRNN branch of apply_encoder (the
-    Pallas train path) must match the concat/scan branch — values and
-    gradients — including multiple layers, the head projection, and
-    ragged lengths. Runs on CPU by forcing dispatch + interpret mode."""
-    import functools
-    from ctc_asr_tpu.models import encoder as enc_mod
-    from ctc_asr_tpu.models import rnn as rnn_mod
-    from ctc_asr_tpu.ops import dispatch
+def test_encoder_birnn_matches_reversed_sequence(rnn_type):
+    """apply_encoder's fused BiRNN (static flip + shifted mask, both
+    directions in one scan) must equal the textbook form — a forward
+    pass plus a pass over the per-utterance reversed valid prefix —
+    in values and gradients, across layers, the head projection and
+    ragged lengths."""
+    from ctc_asr.models import rnn as rnn_mod
+    from ctc_asr.models.layers import dense_apply
 
-    cfg = ModelConfig(frontend="conv", conv_channels=(4,),
-                      conv_kernels=((3, 3),), conv_strides=((2, 2),),
-                      rnn_type=rnn_type,
-                      rnn_layers=2, rnn_units=8, bidirectional=True,
-                      dropout=0.0, compute_dtype="float32")
+    cfg = ModelConfig(frontend="dense", dense_layers=0,
+                      rnn_type=rnn_type, rnn_layers=2, rnn_units=8,
+                      bidirectional=True, dropout=0.0,
+                      compute_dtype="float32")
     params = init_params(jax.random.PRNGKey(0), cfg, 10)
     feats = jax.random.normal(jax.random.PRNGKey(1), (2, 12, 10))
     flens = jnp.asarray([12, 7])
 
-    def run(p):
-        logits, lens = apply_encoder(p, feats, flens, cfg)
-        return logits
+    def textbook(p):
+        x = jnp.swapaxes(feats, 0, 1) * (
+            jnp.arange(12)[:, None] < flens[None, :])[..., None]
+        for layer in p["rnn"]:
+            fwd = rnn_mod.rnn_apply(layer["fwd"], x, flens, rnn_type,
+                                    jnp.float32)
+            bwd = rnn_mod.reverse_sequence(rnn_mod.rnn_apply(
+                layer["bwd"], rnn_mod.reverse_sequence(x, flens), flens,
+                rnn_type, jnp.float32), flens)
+            x = jnp.concatenate([fwd, bwd], axis=-1)
+        return jnp.swapaxes(dense_apply(p["head"], x, jnp.float32), 0, 1)
 
-    want = np.asarray(run(params))
-    g_ref = jax.grad(lambda p: jnp.sum(run(p) ** 2))(params)
+    def fused(p):
+        return apply_encoder(p, feats, flens, cfg)[0]
 
-    # force the pair branch with interpret-mode kernels
-    monkeypatch.setattr(dispatch, "resolve_use_pallas",
-                        lambda f: f is not False)
-    monkeypatch.setattr(
-        rnn_mod, "birnn_pair_apply",
-        functools.partial(rnn_mod.birnn_pair_apply.__wrapped__
-                          if hasattr(rnn_mod.birnn_pair_apply,
-                                     "__wrapped__")
-                          else rnn_mod.birnn_pair_apply, interpret=True))
-    got = np.asarray(run(params))
-    g_pair = jax.grad(lambda p: jnp.sum(run(p) ** 2))(params)
-    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)
-    for a, b in zip(jax.tree_util.tree_leaves(g_pair),
-                    jax.tree_util.tree_leaves(g_ref)):
+    valid = (jnp.arange(12)[None, :] < flens[:, None])[..., None]
+    np.testing.assert_allclose(np.asarray(fused(params) * valid),
+                               np.asarray(textbook(params) * valid),
+                               rtol=1e-4, atol=1e-5)
+    g_fused = jax.grad(lambda p: jnp.sum((fused(p) * valid) ** 2))(params)
+    g_text = jax.grad(lambda p: jnp.sum((textbook(p) * valid) ** 2))(params)
+    for a, b in zip(jax.tree_util.tree_leaves(g_fused),
+                    jax.tree_util.tree_leaves(g_text)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=5e-2, atol=5e-2)
-
-
-def test_fused_rnn_vmem_envelope():
-    """Geometries beyond the fused kernels' scoped-VMEM envelope must
-    take the scan path instead of failing to mosaic-compile. Under the
-    round-3 100M vmem_limit_bytes request (see lstm_pallas._pick_tt)
-    every single-chip-HBM-feasible geometry fits — incl. B=256/H=512,
-    which the old 16M default rejected — and the guard now only trips
-    for far-future giants."""
-    from ctc_asr_tpu.ops.lstm_pallas import fused_fits
-    assert fused_fits(2, 32, 512, 2048)
-    assert fused_fits(2, 128, 512, 2048)
-    assert fused_fits(2, 256, 512, 2048)
-    assert fused_fits(2, 16, 800, 3200)
-    assert not fused_fits(2, 512, 1024, 4096)
+                                   rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("bidirectional", [False, True])

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from ctc_asr_tpu import audio as audio_mod
-from ctc_asr_tpu.data import native_io
+from ctc_asr import audio as audio_mod
+from ctc_asr.data import native_io
 
 
 @pytest.fixture(scope="module")
@@ -64,9 +64,9 @@ def test_wav_info(wavs):
 
 def test_loader_uses_native(tmp_path):
     """End-to-end: loader batches decoded natively match transcripts."""
-    from ctc_asr_tpu.config import DataConfig, FeatureConfig
-    from ctc_asr_tpu.data import DataLoader, read_manifest
-    from ctc_asr_tpu.data.synth import generate_corpus
+    from ctc_asr.config import DataConfig, FeatureConfig
+    from ctc_asr.data import DataLoader, read_manifest
+    from ctc_asr.data.synth import generate_corpus
     mp = generate_corpus(str(tmp_path), num_utterances=8, seed=5)
     loader = DataLoader(read_manifest(mp),
                         DataConfig(batch_size=4, num_buckets=1,

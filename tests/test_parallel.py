@@ -8,20 +8,19 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from ctc_asr_tpu.config import (Config, DataConfig, FeatureConfig,
-                                MeshConfig, ModelConfig, TrainConfig)
-from ctc_asr_tpu.parallel.dist import (make_distributed_beam_decoder,
-                                       make_sharded_eval_step,
-                                       make_sharded_train_step)
-from ctc_asr_tpu.parallel.mesh import (batch_sharding, build_mesh,
-                                       param_shardings, state_shardings)
-from ctc_asr_tpu.train import init_train_state, make_train_step
+from ctc_asr.config import (Config, DataConfig, FeatureConfig,
+                            MeshConfig, ModelConfig, TrainConfig)
+from ctc_asr.parallel.dist import (make_distributed_beam_decoder,
+                                   make_sharded_eval_step,
+                                   make_sharded_train_step)
+from ctc_asr.parallel.mesh import (batch_sharding, build_mesh,
+                                   param_shardings, state_shardings)
+from ctc_asr.train import init_train_state, make_train_step
 
 
 def _tiny_cfg(shard_model=False, model_axis=1, units=64):
     return Config(
-        features=FeatureConfig(feature_type="mfcc", n_mfcc=13, n_mels=26,
-                               use_pallas=False),
+        features=FeatureConfig(feature_type="mfcc", n_mfcc=13, n_mels=26),
         model=ModelConfig(frontend="dense", dense_layers=1,
                           dense_units=units, rnn_layers=1, rnn_units=units,
                           dropout=0.0, compute_dtype="float32"),
@@ -106,36 +105,31 @@ def test_tp_step_matches_single_device():
 
 
 def test_hybrid_tp_step_runs_pallas_ctc_island(monkeypatch):
-    """VERDICT r1 weak #1 fix: the dp x tp hybrid step must run the
-    Pallas CTC kernel inside its shard_map island (interpret mode on
-    CPU) while GSPMD shards the wide matmuls over 'model' — and match
-    single-device numerics."""
-    import functools
-    from ctc_asr_tpu.ops import ctc_pallas, dispatch
-
-    # Make resolve_use_pallas honor the flags on CPU, with the kernel
-    # in interpret mode; features stay on the jnp path (flag False).
-    monkeypatch.setattr(dispatch, "pallas_supported", lambda: True)
-    monkeypatch.setattr(
-        ctc_pallas, "ctc_loss_pallas",
-        functools.partial(ctc_pallas.ctc_loss_pallas, interpret=True))
+    """The dp x tp hybrid step must run the Pallas (Triton) CTC kernel
+    inside its shard_map island (interpret mode on CPU) while GSPMD
+    shards the wide matmuls over 'model' — and match single-device
+    numerics on the scan reference."""
+    from ctc_asr.ops import ctc_ref, ctc_triton
 
     cfg = _tiny_cfg(shard_model=True, model_axis=2, units=512)
-    import dataclasses as dc
-    cfg = dc.replace(cfg, train=dc.replace(cfg.train,
-                                           use_pallas_ctc=True))
     mesh = build_mesh(MeshConfig(model_axis=2))
     state_a = init_train_state(cfg)
     state_b = jax.tree.map(jnp.copy, state_a)
     batch = _fake_batch(B=8, U=4)
 
-    # single-device reference on the XLA twins (the golden numerics) —
-    # every Pallas flag off, since pallas_supported is monkeypatched on
-    from ctc_asr_tpu.parallel.dist import _without_pallas
-    single = make_train_step(_without_pallas(cfg), donate=False)
-    sharded = make_sharded_train_step(cfg, mesh, state_b, donate=False)
+    # single-device reference on the scan CTC (the golden numerics)
+    single = make_train_step(cfg, donate=False)
+    calls = []
+
+    def kernel_nll(*args, **kw):
+        calls.append(1)
+        return ctc_triton.ctc_loss_triton(*args, interpret=True, **kw)
+
+    monkeypatch.setattr(ctc_ref, "ctc_nll", kernel_nll)
     out_a, m_a = single(state_a, *batch)
+    sharded = make_sharded_train_step(cfg, mesh, state_b, donate=False)
     out_b, m_b = sharded(state_b, *batch)
+    assert calls, "the island did not trace the kernel"
     np.testing.assert_allclose(float(m_a["loss"]), float(m_b["loss"]),
                                rtol=1e-4)
     flat_a = jax.tree_util.tree_leaves(out_a["params"])
@@ -178,8 +172,8 @@ def test_sharded_eval_and_decode():
 def test_loader_shards_align_with_mesh(tmp_path):
     """Per-host loader shards partition the manifest (multi-host data
     path, simulated by instantiating shards explicitly)."""
-    from ctc_asr_tpu.data import DataLoader, read_manifest
-    from ctc_asr_tpu.data.synth import generate_corpus
+    from ctc_asr.data import DataLoader, read_manifest
+    from ctc_asr.data.synth import generate_corpus
     mp = generate_corpus(str(tmp_path), num_utterances=12, seed=1)
     manifest = read_manifest(mp)
     dc = DataConfig(batch_size=2, num_buckets=2, num_workers=1,

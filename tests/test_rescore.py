@@ -1,11 +1,10 @@
 """Word-LM N-best rescoring (host-side, reference's 2nd LM mode)."""
 
-import functools
 
 import numpy as np
 import pytest
 
-from ctc_asr_tpu.ops import lm as lm_mod
+from ctc_asr.ops import lm as lm_mod
 
 
 CORPUS = ["the cat sat on the mat", "the dog sat on the rug",
@@ -57,12 +56,12 @@ def test_word_lm_roundtrip(tmp_path):
 def test_nbest_evaluate_path(tmp_path):
     """evaluate() with word_lm_path wired end-to-end (tiny model)."""
     import jax
-    from ctc_asr_tpu.config import (Config, DataConfig, DecodeConfig,
-                                    FeatureConfig, ModelConfig)
-    from ctc_asr_tpu.data import DataLoader, read_manifest
-    from ctc_asr_tpu.data.synth import generate_corpus
-    from ctc_asr_tpu.evaluate import evaluate
-    from ctc_asr_tpu.train import init_train_state
+    from ctc_asr.config import (Config, DataConfig, DecodeConfig,
+                                FeatureConfig, ModelConfig)
+    from ctc_asr.data import DataLoader, read_manifest
+    from ctc_asr.data.synth import generate_corpus
+    from ctc_asr.evaluate import evaluate
+    from ctc_asr.train import init_train_state
 
     mp = generate_corpus(str(tmp_path / "c"), num_utterances=6, seed=2,
                          min_words=1, max_words=2)
@@ -71,8 +70,7 @@ def test_nbest_evaluate_path(tmp_path):
     wlm_path = str(tmp_path / "wlm.pkl")
     lm_mod.save_word_lm(wlm_path, wlm)
     cfg = Config(
-        features=FeatureConfig(feature_type="mfcc", n_mfcc=13, n_mels=26,
-                               use_pallas=False),
+        features=FeatureConfig(feature_type="mfcc", n_mfcc=13, n_mels=26),
         model=ModelConfig(frontend="dense", dense_layers=1, dense_units=32,
                           rnn_layers=1, rnn_units=32, dropout=0.0,
                           compute_dtype="float32"),
@@ -88,19 +86,15 @@ def test_nbest_evaluate_path(tmp_path):
     assert 0 <= res["wer"]  # untrained model; we only check the plumbing
 
 
-def test_nbest_evaluate_path_pallas(tmp_path):
-    """Same plumbing through the Pallas kernel's N-best emit (interpret
-    mode resolves on CPU via decode.use_pallas='interpret'? no —
-    force the kernel path by monkeypatching dispatch)."""
-    from ctc_asr_tpu.config import (Config, DataConfig, DecodeConfig,
-                                    FeatureConfig, ModelConfig)
-    from ctc_asr_tpu.data import DataLoader, read_manifest
-    from ctc_asr_tpu.data.synth import generate_corpus
-    from ctc_asr_tpu import evaluate as ev
-    from ctc_asr_tpu.ops import beam as beam_mod
-    from ctc_asr_tpu.ops import beam_pallas
-    from ctc_asr_tpu.train import init_train_state
-    import jax.numpy as jnp
+def test_nbest_evaluate_path_lm_fusion(tmp_path):
+    """Same plumbing with char-LM fusion inside the N-best beam, then
+    word-LM rescoring of its list."""
+    from ctc_asr.config import (Config, DataConfig, DecodeConfig,
+                                FeatureConfig, ModelConfig)
+    from ctc_asr.data import DataLoader, read_manifest
+    from ctc_asr.data.synth import generate_corpus
+    from ctc_asr import evaluate as ev
+    from ctc_asr.train import init_train_state
 
     mp = generate_corpus(str(tmp_path / "c"), num_utterances=4, seed=3,
                          min_words=1, max_words=2)
@@ -114,33 +108,19 @@ def test_nbest_evaluate_path_pallas(tmp_path):
     lm_mod.save_lm(clm_path, clm)
 
     cfg = Config(
-        features=FeatureConfig(feature_type="mfcc", n_mfcc=13, n_mels=26,
-                               use_pallas=False),
+        features=FeatureConfig(feature_type="mfcc", n_mfcc=13, n_mels=26),
         model=ModelConfig(frontend="dense", dense_layers=1, dense_units=32,
                           rnn_layers=1, rnn_units=32, dropout=0.0,
-                          compute_dtype="float32", use_pallas_rnn=False),
+                          compute_dtype="float32"),
         data=DataConfig(batch_size=2, num_buckets=1, num_workers=1,
                         min_audio_seconds=0.05),
         decode=DecodeConfig(method="beam", beam_width=8, nbest=4,
                             lm_path=clm_path, lm_weight=0.4,
-                            word_lm_path=wlm_path, use_pallas=True),
+                            word_lm_path=wlm_path),
     )
     state = init_train_state(cfg)
     loader = DataLoader(manifest, cfg.data, cfg.features, drop_last=False)
 
-    # On CPU resolve_use_pallas() is False; patch the kernel entry to
-    # interpret mode and the resolver to True so the kernel path runs.
-    import ctc_asr_tpu.ops.dispatch as dispatch
-    orig_resolve = dispatch.resolve_use_pallas
-    orig_decode = beam_pallas.beam_search_decode_pallas
-    dispatch.resolve_use_pallas = lambda flag=True: bool(flag)
-    beam_pallas.beam_search_decode_pallas = functools.partial(
-        orig_decode, interpret=True)
-    try:
-        res = ev.evaluate(cfg, state["params"], loader=loader,
-                          log_samples=0)
-    finally:
-        dispatch.resolve_use_pallas = orig_resolve
-        beam_pallas.beam_search_decode_pallas = orig_decode
+    res = ev.evaluate(cfg, state["params"], loader=loader, log_samples=0)
     assert res["utterances"] == 4
     assert 0 <= res["wer"]

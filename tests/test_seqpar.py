@@ -16,10 +16,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh
 
-from ctc_asr_tpu.config import FeatureConfig
-from ctc_asr_tpu import features as feat_mod
-from ctc_asr_tpu.models.rnn import birnn_apply, lstm_init
-from ctc_asr_tpu.parallel import seqpar
+from ctc_asr.config import FeatureConfig
+from ctc_asr import features as feat_mod
+from ctc_asr.models.rnn import birnn_apply, lstm_init
+from ctc_asr.parallel import seqpar
 
 
 def _seq_mesh(n):
@@ -33,7 +33,7 @@ def _seq_mesh(n):
 def test_sp_features_match_unsharded(norm):
     n = 4
     mesh = _seq_mesh(n)
-    cfg = FeatureConfig(use_pallas=False, normalization=norm)
+    cfg = FeatureConfig(normalization=norm)
     hop, win = cfg.hop_length, cfg.win_length
     S = n * 10 * hop                      # chunk = 10 hops per device
     B = 3
@@ -60,7 +60,7 @@ def test_sp_features_match_unsharded(norm):
 def test_sp_features_int16_wire():
     n = 2
     mesh = _seq_mesh(n)
-    cfg = FeatureConfig(use_pallas=False)
+    cfg = FeatureConfig()
     S = n * 8 * cfg.hop_length
     rng = np.random.default_rng(1)
     wire = jnp.asarray(
@@ -112,7 +112,7 @@ def test_sp_bilstm_output_sharded():
 def test_sp_birnn_other_cells(cell):
     """rnn_type parity for the SP path: GRU and plain-tanh cells match
     models/rnn.birnn_apply exactly through the wavefront."""
-    from ctc_asr_tpu.models.rnn import gru_init, vanilla_init
+    from ctc_asr.models.rnn import gru_init, vanilla_init
     n = 4
     mesh = _seq_mesh(n)
     T, B, F, H = 16, 2, 5, 8
@@ -128,19 +128,18 @@ def test_sp_birnn_other_cells(cell):
 
 
 def _sp_train_cfg(manifest="", bidirectional=True, seq_axis=1):
-    from ctc_asr_tpu.config import (Config, DataConfig, FeatureConfig,
-                                    MeshConfig, ModelConfig, TrainConfig)
+    from ctc_asr.config import (Config, DataConfig, FeatureConfig,
+                                MeshConfig, ModelConfig, TrainConfig)
     return Config(
-        features=FeatureConfig(feature_type="mfcc", n_mfcc=13,
-                               use_pallas=False),
+        features=FeatureConfig(feature_type="mfcc", n_mfcc=13),
         model=ModelConfig(frontend="dense", dense_layers=1,
                           dense_units=32, rnn_layers=2, rnn_units=16,
                           bidirectional=bidirectional, dropout=0.0,
-                          compute_dtype="float32", use_pallas_rnn=False),
+                          compute_dtype="float32"),
         data=DataConfig(train_manifest=manifest, batch_size=2,
                         num_buckets=1, num_workers=1,
                         min_audio_seconds=0.05, max_audio_seconds=10.0),
-        train=TrainConfig(learning_rate=1e-3, use_pallas_ctc=False,
+        train=TrainConfig(learning_rate=1e-3,
                           total_steps=3, log_every=1, checkpoint_every=3,
                           eval_every=0, precompile=False),
         mesh=MeshConfig(seq_axis=seq_axis),
@@ -153,7 +152,7 @@ def test_sp_train_step_matches_unsharded(bidirectional):
     -> wavefront stack -> head -> CTC -> backward -> Adam) reproduces
     the unsharded single-device step: same loss and same updated params
     after two steps (VERDICT r3 weak #3)."""
-    from ctc_asr_tpu.train import init_train_state, make_train_step
+    from ctc_asr.train import init_train_state, make_train_step
 
     n = 4
     mesh = _seq_mesh(n)
@@ -198,8 +197,8 @@ def test_sp_train_config_driven(tmp_path):
     (loader -> sp_batch_put -> wavefront step -> checkpoint): a user
     can turn SP on from the config alone."""
     import dataclasses as dcm
-    from ctc_asr_tpu.data.synth import generate_corpus
-    from ctc_asr_tpu.train import train
+    from ctc_asr.data.synth import generate_corpus
+    from ctc_asr.train import train
 
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
@@ -224,7 +223,7 @@ def _conv_cfg(cfg, specaugment=False, conv_as_matmul=False):
     HALO math at tight tolerance (the banded-matmul default differs
     from NHWC by reduction order alone — covered by the convergence
     trajectory test, which runs the production default)."""
-    from ctc_asr_tpu.config import ModelConfig
+    from ctc_asr.config import ModelConfig
     return dc.replace(
         cfg,
         model=ModelConfig(frontend="conv", conv_channels=(8, 8),
@@ -233,8 +232,7 @@ def _conv_cfg(cfg, specaugment=False, conv_as_matmul=False):
                           rnn_layers=1, rnn_units=16,
                           bidirectional=True, dropout=0.0,
                           compute_dtype="float32",
-                          conv_as_matmul=conv_as_matmul,
-                          use_pallas_rnn=False),
+                          conv_as_matmul=conv_as_matmul),
         train=dc.replace(cfg.train, specaugment=specaugment))
 
 
@@ -247,7 +245,7 @@ def test_sp_train_step_conv_matches_unsharded(specaugment):
     SpecAugment parity works because every device draws the same span
     parameters from the replicated sa_rng and masks its own global
     slice."""
-    from ctc_asr_tpu.train import init_train_state, make_train_step
+    from ctc_asr.train import init_train_state, make_train_step
 
     n = 4
     mesh = _seq_mesh(n)
@@ -286,7 +284,7 @@ def test_sp_train_step_conv_matches_unsharded(specaugment):
 def test_sp_eval_step_matches_unsharded():
     """make_sp_eval_step == make_eval_step on the conv config: same
     logits (replicated) and output lengths."""
-    from ctc_asr_tpu.train import init_train_state, make_eval_step
+    from ctc_asr.train import init_train_state, make_eval_step
 
     n = 4
     mesh = _seq_mesh(n)
@@ -317,9 +315,9 @@ def test_sp_conv_convergence_trajectory(tmp_path):
     same loader seed), dropout 0; per-step losses must agree within
     accumulated-f32-drift tolerance and the final loss must have
     dropped."""
-    from ctc_asr_tpu.data import DataLoader, read_manifest
-    from ctc_asr_tpu.data.synth import generate_corpus
-    from ctc_asr_tpu.train import init_train_state, make_train_step
+    from ctc_asr.data import DataLoader, read_manifest
+    from ctc_asr.data.synth import generate_corpus
+    from ctc_asr.train import init_train_state, make_train_step
 
     n = 4
     mesh = _seq_mesh(n)

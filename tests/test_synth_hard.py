@@ -3,11 +3,11 @@ the round-2 WER-discrimination assets (VERDICT r1 next #1, #5)."""
 
 import numpy as np
 
-from ctc_asr_tpu.data.manifest import read_manifest
-from ctc_asr_tpu.data.synth import (build_vocabulary, generate_hard_corpus,
-                                    render_transcript_hard, speaker_params)
-from ctc_asr_tpu.ops import lm as lm_mod
-from ctc_asr_tpu.text import ALPHABET
+from ctc_asr.data.manifest import read_manifest
+from ctc_asr.data.synth import (build_vocabulary, generate_hard_corpus,
+                                render_transcript_hard, speaker_params)
+from ctc_asr.ops import lm as lm_mod
+from ctc_asr.text import ALPHABET
 
 
 def test_vocabulary_deterministic_and_charset_clean():
@@ -96,7 +96,7 @@ def test_oov_vocabulary_disjoint_and_prefix_stable():
     """build_vocabulary is prefix-stable, so the OOV inventory is the
     exact continuation of the base distribution with zero shared word
     types (the open-vocab axis, VERDICT r4 next #1)."""
-    from ctc_asr_tpu.data.synth import build_oov_vocabulary
+    from ctc_asr.data.synth import build_oov_vocabulary
     base = build_vocabulary(384)
     assert build_vocabulary(768)[:384] == base
     oov = build_oov_vocabulary(384, 384)
@@ -113,7 +113,7 @@ def test_generate_hard_split_matches_corpus_distribution(tmp_path):
     disjoint transcripts vs an exclude set, requested speaker pool,
     wav lengths in the corpus's range, all words from the given
     vocabulary."""
-    from ctc_asr_tpu.data.synth import generate_hard_split
+    from ctc_asr.data.synth import generate_hard_split
     vocab = build_vocabulary(64)
     exclude = {"aa bb", " ".join([str(vocab[0])] * 2)}
     path = generate_hard_split(str(tmp_path), "extra", vocab, 12,
@@ -129,7 +129,7 @@ def test_generate_hard_split_matches_corpus_distribution(tmp_path):
 
 
 def test_generate_lm_text_covers_vocab_without_audio():
-    from ctc_asr_tpu.data.synth import generate_lm_text
+    from ctc_asr.data.synth import generate_lm_text
     vocab = build_vocabulary(64)
     texts = generate_lm_text(vocab, 500, seed=3)
     assert len(texts) == 500

@@ -3,7 +3,7 @@
 import os
 import struct
 
-from ctc_asr_tpu.utils.tb_events import EventFileWriter, _masked_crc, crc32c
+from ctc_asr.utils.tb_events import EventFileWriter, _masked_crc, crc32c
 
 
 def _read_records(path):
@@ -110,7 +110,7 @@ def test_event_file_round_trip(tmp_path):
 
 
 def test_metrics_writer_emits_tb_file(tmp_path):
-    from ctc_asr_tpu.metrics import MetricsWriter
+    from ctc_asr.metrics import MetricsWriter
     mw = MetricsWriter(str(tmp_path), echo=False)
     mw.write(1, loss=3.0)
     mw.write(2, loss=2.0, wer=0.5)

@@ -1,9 +1,9 @@
 import numpy as np
 import pytest
 
-from ctc_asr_tpu import text
-from ctc_asr_tpu.metrics import (ErrorRateAccumulator, cer, levenshtein,
-                                 paired_bootstrap, wer)
+from ctc_asr import text
+from ctc_asr.metrics import (ErrorRateAccumulator, cer, levenshtein,
+                             paired_bootstrap, wer)
 
 
 def test_charset_size():

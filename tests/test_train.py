@@ -8,14 +8,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from ctc_asr_tpu import checkpoint as ckpt_mod
-from ctc_asr_tpu.config import (Config, DataConfig, DecodeConfig,
-                                FeatureConfig, ModelConfig, TrainConfig)
-from ctc_asr_tpu.data import DataLoader, read_manifest
-from ctc_asr_tpu.data.synth import generate_corpus
-from ctc_asr_tpu.evaluate import evaluate
-from ctc_asr_tpu.train import (init_train_state, make_train_step, train)
-from ctc_asr_tpu.transcribe import Transcriber
+from ctc_asr import checkpoint as ckpt_mod
+from ctc_asr.config import (MeshConfig, Config, DataConfig, DecodeConfig,
+                            FeatureConfig, ModelConfig, TrainConfig)
+from ctc_asr.data import DataLoader, read_manifest
+from ctc_asr.data.synth import generate_corpus
+from ctc_asr.evaluate import evaluate
+from ctc_asr.train import (init_train_state, make_train_step, train)
+from ctc_asr.transcribe import Transcriber
 
 
 @pytest.fixture(scope="module")
@@ -24,8 +24,7 @@ def tiny_setup(tmp_path_factory):
     manifest_path = generate_corpus(str(out), num_utterances=16, seed=3,
                                     min_words=1, max_words=2)
     cfg = Config(
-        features=FeatureConfig(feature_type="mfcc", n_mfcc=13, n_mels=26,
-                               use_pallas=False),
+        features=FeatureConfig(feature_type="mfcc", n_mfcc=13, n_mels=26),
         model=ModelConfig(frontend="dense", dense_layers=1, dense_units=64,
                           rnn_layers=1, rnn_units=64, dropout=0.0,
                           compute_dtype="float32"),
@@ -38,6 +37,7 @@ def tiny_setup(tmp_path_factory):
                           checkpoint_every=1000, grad_clip_norm=5.0,
                           train_dir=str(tmp_path_factory.mktemp("trdir"))),
         decode=DecodeConfig(method="greedy"),
+        mesh=MeshConfig(data_axis=1),
     )
     return cfg, manifest_path
 
@@ -119,12 +119,32 @@ def test_train_loop_with_resume(tiny_setup, tmp_path_factory):
                   train=TrainConfig(learning_rate=1e-3, total_steps=6,
                                     log_every=3, eval_every=1000,
                                     checkpoint_every=3, train_dir=tdir),
-                  decode=cfg.decode)
+                  decode=cfg.decode, mesh=cfg.mesh)
     state = train(cfg2, max_steps=6)
     assert int(state["step"]) == 6
     # resume: raising total_steps continues from 6 (checkpoint at 6)
     state2 = train(cfg2, max_steps=8)
     assert int(state2["step"]) == 8
+
+
+def test_train_single_process_spans_local_devices(tiny_setup,
+                                                 tmp_path_factory):
+    """One process on a multi-device host trains data-parallel over
+    ``mesh.data_axis`` local devices (-1 = all) instead of silently
+    using device 0 alone, and refuses a batch that does not split."""
+    import dataclasses as dc
+    cfg, _ = tiny_setup
+    tdir = str(tmp_path_factory.mktemp("dp_dir"))
+    cfg4 = dc.replace(cfg, mesh=MeshConfig(data_axis=4),
+                      train=dc.replace(cfg.train, train_dir=tdir,
+                                       log_every=0, checkpoint_every=0))
+    state = train(cfg4, max_steps=2)
+    assert int(state["step"]) == 2
+    leaf = jax.tree_util.tree_leaves(state["params"])[0]
+    assert len(leaf.sharding.device_set) == 4
+    cfg_all = dc.replace(cfg4, mesh=MeshConfig(data_axis=-1))
+    with pytest.raises(ValueError, match="does not split"):
+        train(cfg_all, max_steps=1)
 
 
 def test_evaluate_max_batches_caps_work(tiny_setup):
@@ -142,9 +162,9 @@ def test_evaluate_max_batches_caps_work(tiny_setup):
 def test_seq_axis_with_multiprocess_is_loud(tiny_setup, monkeypatch):
     """mesh.seq_axis > 1 + process_count > 1 is an unbuilt regime
     combination; train() must refuse loudly instead of silently
-    training pure-DP with seq_axis ignored (VERDICT r4 next #4)."""
+    training pure-DP with seq_axis ignored."""
     import dataclasses as dc
-    from ctc_asr_tpu.config import MeshConfig
+    from ctc_asr.config import MeshConfig
     cfg, _ = tiny_setup
     cfg2 = dc.replace(cfg, mesh=MeshConfig(seq_axis=2))
     monkeypatch.setattr(jax, "process_count", lambda: 2)
